@@ -35,9 +35,17 @@ scaling:
 baseline-configs:
     python tools/bench_baseline_configs.py
 
-# on-chip conformance artifact (run on the TPU host)
-conformance-tpu:
-    python tools/conformance_gate.py --trials 120 --json CONFORMANCE_TPU.json
+# end-to-end smoke on one NVIDIA GPU (exact vs the host route)
+smoke-gpu:
+    python chip_smoke.py
+
+# conformance gate on the GPU's device route, with a JSON artifact
+conformance-gpu:
+    python tools/conformance_gate.py --device-route --trials 120 --json out/conformance_gpu.json
+
+# tests that need an NVIDIA card
+test-gpu:
+    JAX_PLATFORMS=cuda,cpu python -m pytest -m gpu tests/ -q
 
 # scripted two-session pty drive of the terminal UI
 tui-smoke:

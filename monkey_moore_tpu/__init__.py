@@ -1,17 +1,17 @@
-"""monkey_moore_tpu — a TPU-native relative-search framework.
+"""monkey_moore_tpu — a relative-search framework on JAX accelerators.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 rjricken/monkey-moore (a relative-search utility for ROM hacking): find text
 in binaries with unknown encodings by matching the pattern of successive
 differences between element values, with wildcard support, 8/16-bit elements,
 big/little endianness, value-scan mode, custom character sequences,
 equivalency-map recovery, previews, and Thingy-table export.
 
-Architecture (TPU-first, see SURVEY.md §7):
+Architecture (device-first, see SURVEY.md §7):
 
 - ``pattern``    — pattern compiler: keyword → numeric check/skip tables (L0)
 - ``oracle``     — exact sequential reference walker (conformance truth, L1)
-- ``ops``        — dense scan kernels (XLA + Pallas), suppression, recovery (L2)
+- ``ops``        — dense scan (XLA), host scanner, suppression, recovery (L2)
 - ``engine``     — chunked file search engine with progress/abort/previews (L3)
 - ``parallel``   — mesh sharding, halo exchange, multi-host orchestration (L4)
 - ``tables``/``sequences``/``prefs``/``cli`` — UX parity layer (L5)

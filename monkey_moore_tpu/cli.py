@@ -4,7 +4,7 @@ The headless counterpart of the reference's GUI application: everything the
 wx frontend exposes (``src/gui/monkey_frame.cpp``) is reachable here —
 relative search, value scan, wildcards, custom sequences (named or literal),
 8/16-bit widths, endianness, previews, result dedup by equivalency map,
-hex/dec offsets, Thingy-table export — plus the TPU-native knobs (match
+hex/dec offsets, Thingy-table export — plus the device knobs (match
 semantics, device chunk size).
 
 Usage::
@@ -68,7 +68,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--stats", action="store_true",
                    help="print per-stage timing statistics")
     p.add_argument("--cpu", action="store_true",
-                   help="force the CPU backend (no TPU)")
+                   help="force the CPU backend (no accelerator)")
     p.add_argument("--threads", type=int, default=0,
                    help="host worker threads for the REFERENCE walk and "
                         "the host latency path (0 = hardware concurrency)")
@@ -83,7 +83,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="monkey_moore_tpu",
-        description="TPU-native relative search for binaries with unknown "
+        description="Relative search on JAX accelerators for binaries with "
+                    "unknown "
                     "text encodings.",
     )
     sub = ap.add_subparsers(dest="command", required=True)
@@ -144,7 +145,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     r.add_argument("file", nargs="?", help="file to open on startup")
     r.add_argument("--cpu", action="store_true",
-                   help="force the CPU backend (no TPU)")
+                   help="force the CPU backend (no accelerator)")
     r.add_argument("--prefs", default=None,
                    help="preference file (default: the user config dir, "
                         "override with MMTPU_PREFS); loaded on start, "

@@ -1,8 +1,8 @@
-"""Configuration types for the TPU-native relative-search framework.
+"""Configuration types for the relative-search framework.
 
 Mirrors the reference's public configuration surface
 (``include/mmoore/search_engine.hpp:23-45`` — ``mmoore::SearchConfig``,
-``SearchStep``, ``SearchResult``) while adding TPU-native knobs (device chunking,
+``SearchStep``, ``SearchResult``) while adding device knobs (device chunking,
 match-buffer capacity, mesh shape, match semantics).
 
 Design note: the reference selects the element width via a C++ template
@@ -60,14 +60,14 @@ class MatchSemantics(enum.Enum):
     a bad-character skip after a mismatch (``:402-405``).  The skip heuristic is
     *not* always safe: it can jump past a true match (e.g. keyword ``abcde``
     over data ``10,6,7,8,9,10`` — the mismatch at offset 0 jumps 4, skipping
-    the match at offset 1).  A dense TPU scan naturally finds *every* match, so
+    the match at offset 1).  A dense device scan naturally finds *every* match, so
     the framework exposes three semantics:
 
     - ``ALL``: every matching offset (a superset of the reference's output).
     - ``GREEDY``: dense scan + greedy replay of the post-match advance over the
       candidate list.  Identical to the reference except in the pathological
       skip-overshoot cases above; identical on the reference's whole test
-      corpus.  This is the default and the fast TPU path.
+      corpus.  This is the default and the fast device path.
     - ``REFERENCE``: bit-identical replica of the reference's sequential walk,
       including unsafe skips (runs the native/NumPy oracle walker per block).
     """
@@ -87,7 +87,7 @@ class SearchConfig:
     """Search job description.
 
     Field-for-field mirror of ``mmoore::SearchConfig``
-    (``include/mmoore/search_engine.hpp:23-38``) plus TPU-native controls.
+    (``include/mmoore/search_engine.hpp:23-38``) plus device controls.
     """
 
     file_path: Union[str, Path, None] = None
@@ -115,18 +115,17 @@ class SearchConfig:
     #: ``search_engine.hpp:35``); 0 = auto.
     preferred_num_threads: int = 0
     #: Logical search-block size in BYTES (``search_engine.hpp:36``).  Controls
-    #: block-level suppression grouping and progress granularity; on TPU many
-    #: logical blocks are scanned in one device chunk.
+    #: block-level suppression grouping and progress granularity; the
+    #: device scans many logical blocks in one device chunk.
     preferred_search_block_size: int = 524288
     #: Preview width in ELEMENTS (``search_engine.hpp:37``).
     preferred_preview_width: int = 50
 
-    # ---- TPU-native knobs ---------------------------------------------
+    # ---- device knobs ---------------------------------------------------
     #: Bytes of file data scanned per device dispatch (static shape; the tail
     #: chunk is padded and masked; clamped by the file size).  Large default:
-    #: on a latency-dominated link every dispatch costs a fixed round trip,
-    #: so big files want few big chunks (a 1 GiB resident search is 2
-    #: dispatches instead of 16).
+    #: every dispatch costs a fixed launch and fetch, so big files want few
+    #: big chunks (a 1 GiB resident search is 2 dispatches instead of 16).
     device_chunk_bytes: int = 512 * 1024 * 1024
     #: Fixed per-chunk match-buffer capacity (SPMD-friendly compaction).  If a
     #: chunk overflows, the engine retries that chunk with a larger buffer.
@@ -136,25 +135,20 @@ class SearchConfig:
     #: Optional explicit list of JAX devices to shard the scan over; None =
     #: single (default) device.
     devices: Optional[Sequence] = None
-    #: Use the Pallas TPU kernel when available (falls back to the pure-XLA
-    #: path on CPU or on unsupported shapes).
-    use_pallas: bool = True
-    #: Files up to this size stay resident in device HBM between searches
+    #: Files up to this size stay resident in device memory between searches
     #: (interactive ROM exploration: upload once, search many keywords).
-    #: Default sized for a 16 GiB-HBM chip minus scan working set (the
-    #: 12 GiB headline bench corpus + gather slots fit comfortably).
     #: 0 disables residency.
     resident_bytes_limit: int = 12 * 1024 * 1024 * 1024
     #: Files at or below this size bypass the device entirely: the host
     #: dense scanner (``native/mm_walker.cpp:mm_dense_scan_*``, ~memory
-    #: bandwidth) beats paying the dispatch round trip.  The reference's
+    #: bandwidth) beats paying a device dispatch.  The reference's
     #: whole benchmark range (128 KiB-16 MiB,
     #: ``benchmarks/bench_search.cpp:70``) sits under the default.
     #: 0 disables the host route (every search uses the device path).
     host_latency_threshold_bytes: int = 64 * 1024 * 1024
     #: In-flight fused device steps: the engine dispatches chunk k+1 before
-    #: fetching chunk k's result buffer, hiding up to ``depth-1`` dispatch
-    #: round trips per step on latency-dominated links.  1 = synchronous.
+    #: fetching chunk k's result buffer, hiding up to ``depth-1`` result
+    #: fetches behind device work.  1 = synchronous.
     pipeline_depth: int = 2
 
     def clamp_ui_bounds(self) -> "SearchConfig":

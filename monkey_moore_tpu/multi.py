@@ -1,4 +1,4 @@
-"""Multi-keyword search over one corpus (TPU-native addition).
+"""Multi-keyword search over one corpus (an addition beyond the reference).
 
 Interactive ROM exploration usually tries *many* keywords against the same
 file.  The reference re-runs its whole engine per keyword; here all patterns
@@ -61,10 +61,9 @@ class MultiSearcher:
         self.preview_width = preferred_preview_width
         self.semantics = semantics
         self.resident_bytes_limit = resident_bytes_limit
-        #: optional JAX device list — the keyword batch scans a sharded
-        #: resident corpus across this mesh (one collective dispatch for
-        #: the whole batch where the SWAR multi kernel is eligible,
-        #: per-keyword collective dispatches otherwise)
+        #: optional JAX device list — each keyword runs the engine's
+        #: sharded resident-corpus path across this mesh (one collective
+        #: dispatch per keyword and alignment, no corpus re-upload)
         self.devices = list(devices) if devices else None
 
     def _config(self, spec: Spec) -> SearchConfig:
@@ -110,8 +109,12 @@ class MultiSearcher:
 
         import jax.numpy as jnp
 
-        from .corpus import get_resident_corpus
-        from .ops.scan_jnp import tile_counts_multi_xla
+        from .corpus import get_resident_corpus, resident_pad_bytes
+        from .dense import extract_hot_tiles_device
+        from .ops.scan_jnp import canonical_check_tables, tile_counts_multi_xla
+        from .utils.jit_cache import enable_persistent_cache
+
+        enable_persistent_cache()
 
         pats = [self._compile(s) for s in specs]
         if not self.file_path.exists():
@@ -138,27 +141,17 @@ class MultiSearcher:
             self.file_path,
             file_size,
             self.resident_bytes_limit,
-            pad_bytes=want * s + s,
+            pad_bytes=resident_pad_bytes(chunk_elems * s, tile_elems),
         )
 
         # Check tables via the shared canonical builder (simple-mode
         # patterns padded so batches of plain keywords share executables).
-        from .dense import fused_count_extract_multi, fused_multi_eligible
-        from .ops.scan_jnp import canonical_check_tables
-
         pair_sets, raw_exp, raw_active = canonical_check_tables(pats)
         lengths_arr = jnp.asarray(
             [pat.length for pat in pats], dtype=jnp.int32
         )
         expected = tuple(jnp.asarray(e) for e in raw_exp)
         active = tuple(jnp.asarray(a) for a in raw_active)
-
-        # PRODUCTION path: one fused SWAR dispatch per chunk evaluates every
-        # keyword (corpus read once), gathers + exactly re-checks hot tiles
-        # on device, and ships one packed buffer — no host re-decode at all.
-        use_fused = resident is not None and fused_multi_eligible(
-            pats, tile_elems
-        )
 
         per_group = [dict() for _ in pats]
         candidate_info = [dict() for _ in pats]
@@ -180,7 +173,7 @@ class MultiSearcher:
                     continue
                 if resident is not None:
                     dev_arr = resident.grid_chunk(
-                        s, self.endianness, a, e0, want, packed=use_fused
+                        s, self.endianness, a, e0, want
                     )
                     arr_host = None
                 else:
@@ -203,29 +196,6 @@ class MultiSearcher:
                         ).append(e_global)
                         candidate_info[pi][(a, e_global)] = (byte_off, val)
 
-                if use_fused:
-                    try:
-                        fused = fused_count_extract_multi(
-                            pats, dev_arr, count_here, tile_elems=tile_elems
-                        )
-                    except Exception as e:  # e.g. scoped-VMEM lowering
-                        # refusal for a very large batch — degrade to the
-                        # XLA multi-count path for the rest of the search
-                        from .utils.logging import log
-
-                        log("fused multi batch failed (", e,
-                            "); XLA multi-count fallback")
-                        use_fused = False
-                        if resident is not None:
-                            dev_arr = resident.grid_chunk(
-                                s, self.endianness, a, e0, want,
-                                packed=False,
-                            )
-                    else:
-                        for pi, (offs, vals, _info) in enumerate(fused):
-                            emit(pi, offs, vals)
-                        continue
-
                 counts_all = tile_counts_multi_xla(
                     dev_arr,
                     jnp.int32(count_here),
@@ -242,8 +212,6 @@ class MultiSearcher:
                     if resident is not None:
                         # extract from the device-resident grid (no
                         # whole-chunk host re-decode)
-                        from .dense import extract_hot_tiles_device
-
                         offs, vals = extract_hot_tiles_device(
                             pats[pi], dev_arr, counts, count_here,
                             tile_elems,
@@ -264,104 +232,18 @@ class MultiSearcher:
     def _search_mesh(
         self, specs: Sequence[Spec], generate_previews: bool
     ) -> List[List[SearchResult]]:
-        """Multi-keyword batch across a device mesh.
-
-        The corpus lives sharded + resident (``parallel/resident.py``);
-        where the SWAR multi kernel is eligible the WHOLE keyword batch
-        costs one collective dispatch per alignment grid
-        (``parallel.sharded.sharded_fused_multi_step``).  Otherwise each
-        keyword runs the engine's resident mesh path — still one
-        collective dispatch per keyword with zero corpus re-upload.
-        """
-        from .dense import fused_multi_eligible
-        from .ops.scan_host import decode_grid_host
-        from .parallel.mesh import make_mesh
-        from .parallel.resident import get_sharded_corpus
-        from .parallel.sharded import sharded_fused_multi_step
-
-        def per_keyword_fallback():
-            out = []
-            for sp in specs:
-                cfg = self._config(sp)
-                cfg.devices = self.devices
-                out.append(
-                    SearchEngine(cfg).run(
-                        generate_previews=generate_previews
-                    )
-                )
-            return out
-
-        pats = [self._compile(sp) for sp in specs]
-        if not self.file_path.exists():
-            raise FileNotFoundError("File not found")
-        file_size = self.file_path.stat().st_size
-        s = self.element_width
-        mesh = make_mesh(self.devices)
-        d = len(self.devices)
-        per_dev = -(-max(1, file_size) // d)
-        l_max = max(p.length for p in pats)
-        if l_max > TILE_ELEMS:
-            return per_keyword_fallback()
-        # tile must cover the longest window (see engine's mesh-resident
-        # tile sizing): shard/tile halos are exactly one tile
-        tile_m = min(
-            TILE_ELEMS,
-            max(
-                64,
-                1 << (per_dev - 1).bit_length(),
-                1 << (l_max - 1).bit_length(),
-            ),
-        )
-        corpus = get_sharded_corpus(
-            self.file_path, file_size, mesh, tile_m,
-            self.resident_bytes_limit,
-        )
-        if corpus is None or not fused_multi_eligible(
-            pats, corpus.tile_elems
-        ):
-            return per_keyword_fallback()
-
-        data = np.memmap(self.file_path, dtype=np.uint8, mode="r")
-        l_min = min(p.length for p in pats)
-        per_group = [dict() for _ in pats]
-        candidate_info = [dict() for _ in pats]
-        for a in range(s):
-            valid_count = max(0, (file_size - a) // s)
-            if valid_count < l_min:
-                continue
-            dev_in = corpus.grid(s, self.endianness, a, packed=True)
-            try:
-                res = sharded_fused_multi_step(
-                    pats, dev_in, mesh, valid_count, corpus.tile_elems,
-                    corpus.t_loc(s),
-                )
-            except Exception as e:  # lowering refusal (huge batch)
-                from .utils.logging import log
-
-                log("sharded fused multi failed (", e,
-                    "); per-keyword fallback")
-                res = None
-            if res is None:  # lost eligibility / lowering refused
-                return per_keyword_fallback()
-            arr = None  # decoded once per alignment, only if any overflow
-            for pi, (offs, vals, _info, over) in enumerate(res):
-                if over is not None:
-                    if arr is None:
-                        arr = decode_grid_host(
-                            data, file_size, s, self.endianness, a
-                        )
-                    offs, vals = extract_hot_tiles(
-                        pats[pi], arr, over, corpus.tile_elems
-                    )
-                for off, val in zip(offs.tolist(), vals.tolist()):
-                    byte_off = a + off * s
-                    block_id = byte_off // self.block_size
-                    per_group[pi].setdefault((block_id, a), []).append(off)
-                    candidate_info[pi][(a, off)] = (byte_off, val)
-        return self._finalize_all(
-            specs, pats, per_group, candidate_info, data, file_size,
-            generate_previews,
-        )
+        """Multi-keyword batch across a device mesh: each keyword runs the
+        engine's resident mesh path (``parallel/resident.py``) — one
+        collective dispatch per keyword and alignment, with the sharded
+        corpus uploaded once for the whole batch."""
+        out = []
+        for sp in specs:
+            cfg = self._config(sp)
+            cfg.devices = self.devices
+            out.append(
+                SearchEngine(cfg).run(generate_previews=generate_previews)
+            )
+        return out
 
     def _finalize_all(
         self, specs, pats, per_group, candidate_info, data, file_size,

@@ -8,7 +8,7 @@ value under the first literal and that literal's reference value.  Mirrors:
 - wildcard recovery (incl. independent mixed-case shifts)
   — ``src/core/monkey_moore.cpp:472-521``
 
-The dense TPU path gathers only the needed data values per match on device
+The dense device path gathers only the needed data values per match on device
 (O(matches) work), then calls :func:`recover_from_values` on host; the
 sequential oracle shares the same code path.
 """

@@ -1,7 +1,7 @@
 """NumPy dense matcher — host-side phase-2 extraction and CPU fallback.
 
 The production scan is two-phase: the device computes per-tile match *counts*
-at HBM bandwidth (``scan_pallas.py`` / ``scan_jnp.tile_counts``); the host
+at memory bandwidth (``scan_jnp.tile_counts_xla``); the host
 then extracts exact offsets only from the rare hot tiles using this
 vectorized matcher.  Matches in a 64 KiB tile cost microseconds here, and the
 device never materializes a giant offset compaction (which would dominate

@@ -1,7 +1,7 @@
 """Sequential reference oracle (layer L1).
 
 A faithful scalar replica of the reference's two hot scan loops, used as (a)
-the conformance source of truth for the dense TPU kernels, and (b) the
+the conformance source of truth for the dense device scan, and (b) the
 engine's ``MatchSemantics.REFERENCE`` execution path (optionally accelerated
 by the C++ walker in ``native/``).
 

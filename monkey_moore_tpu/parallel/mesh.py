@@ -1,9 +1,10 @@
 """Device mesh helpers.
 
 The reference's only parallelism is data-parallel file blocks on a CPU thread
-pool (``src/core/search_engine.cpp:67-175``).  The TPU-native analog is a 1-D
+pool (``src/core/search_engine.cpp:67-175``).  The device analog is a 1-D
 ``jax.sharding.Mesh`` over the corpus ("data" axis = the sequence dimension),
-with halo exchange at shard boundaries riding ICI (``sharded.py``).
+with halo exchange between neighbor devices at shard boundaries
+(``sharded.py``).
 """
 
 from __future__ import annotations

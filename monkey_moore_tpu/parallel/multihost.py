@@ -1,6 +1,6 @@
 """Multi-host orchestration (layer L4).
 
-Scales the search across TPU pod hosts.  Design (mirrors the reference's
+Scales the search across hosts.  Design (mirrors the reference's
 overlapping block reads rather than exchanging halos over DCN,
 ``src/core/search_engine.cpp:120-127``):
 

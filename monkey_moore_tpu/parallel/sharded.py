@@ -1,10 +1,10 @@
 """Sharded dense scan over a device mesh (layer L4).
 
-The TPU-native counterpart of the reference's block/thread-pool runtime
+The multi-device counterpart of the reference's block/thread-pool runtime
 (``src/core/search_engine.cpp:82-175``): the element array is sharded across
 the mesh's "data" axis; each device scans its shard plus a halo of
 ``pattern_len - 1`` elements fetched from its right neighbor with
-``lax.ppermute`` (one ICI hop) — mirroring the reference's overlapping block
+``lax.ppermute`` (one neighbor exchange) — mirroring the reference's overlapping block
 reads (``search_engine.cpp:223-252``).  Every match is found by exactly one
 shard (the one whose base region contains its start), so no dedup is needed;
 per-shard fixed-capacity candidate buffers are returned sharded and
@@ -23,7 +23,6 @@ import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..ops.scan_jnp import match_bitmap, compact_matches, pattern_device_args
-from ..ops.scan_pallas import LANES as LANES_
 from ..pattern import CompiledPattern
 from .mesh import DATA_AXIS
 
@@ -60,7 +59,7 @@ def sharded_scan_fn(
         my = jax.lax.axis_index(DATA_AXIS)
 
         # Halo exchange: receive the first ``halo`` elements of the right
-        # neighbor (one ICI neighbor permute; wraps at the boundary, where the
+        # neighbor (one neighbor permute; wraps at the boundary, where the
         # stale values are masked off by the global valid count).
         perm = [(i, (i - 1) % n_dev) for i in range(n_dev)]
         halo_elems = jax.lax.ppermute(d_local[:halo], DATA_AXIS, perm)
@@ -122,7 +121,7 @@ def shard_grid(arr: np.ndarray, mesh: Mesh, tile_elems: int):
 
 def _sharded_counts_fn(mesh: Mesh, pairs, length: int, tile_elems: int):
     """Jitted SPMD phase-1 prefilter: each device counts matches per tile in
-    its shard, with a one-ICI-hop ``ppermute`` halo of one tile from the
+    its shard, with a one-neighbor ``ppermute`` halo of one tile from the
     right neighbor (the collective analog of the reference's overlapping
     block reads, ``search_engine.cpp:223-252``)."""
     import jax
@@ -206,107 +205,37 @@ def sharded_tile_counts(
 
 
 # ---------------------------------------------------------------------------
-# Fused multi-device step: the PRODUCTION scan (Pallas SWAR prefilter +
-# on-device exact phase 2 + O(matches) D2H) under shard_map — each device
-# runs the same fused body the single-device path uses
-# (``dense.fused_count_extract``), with a one-ICI-hop ``ppermute`` halo of
-# one count tile.  This is the multi-chip analog of the reference's claim
-# that block parallelism is *the* scaling story
-# (``src/core/search_engine.cpp:82-175``).
-
-
-def _fused_mode(
-    use_pallas: bool, interpret: bool, tile_elems: int, max_shift: int
-) -> str:
-    """Per-device backend for the sharded fused step: ``"swar"`` (the
-    production Pallas kernel on its packed layout) or ``"xla"`` (every
-    other toolchain — element-dtype Pallas modes take the XLA body under
-    shard_map).  Same gates as the single-device
-    ``dense._use_pallas_backend``: selected prefilter shifts must stay
-    under one kernel row (``max_shift < LANES``) — beyond it the kernel's
-    one-row-down views read wrong data and would silently undercount."""
-    from ..ops.scan_pallas import LANES, pallas_compute_mode
-
-    if tile_elems % (8 * LANES) != 0 or max_shift >= LANES:
-        return "xla"
-    if not use_pallas:
-        return "xla"
-    if interpret:
-        # interpret-mode SWAR (CPU validation of the TPU path)
-        return "swar"
-    return "swar" if pallas_compute_mode() == "swar" else "xla"
+# Fused multi-device step: the PRODUCTION scan (device prefilter + on-device
+# exact phase 2 + O(matches) D2H) under shard_map — each device runs the
+# same fused body the single-device path uses (``dense.fused_count_extract``),
+# with a one-neighbor ``ppermute`` halo of one count tile.  This is the
+# multi-device analog of the reference's claim that block parallelism is
+# *the* scaling story (``src/core/search_engine.cpp:82-175``).
 
 
 @functools.lru_cache(maxsize=64)
 def _sharded_fused_fn(
     mesh, *, pairs, length, tile_elems, k_cap, p_cap, signed_compare,
-    pairs_exact, mode, width, interpret, t_loc, wc_run=None,
+    pairs_exact,
 ):
     import jax
 
     from ..ops.scan_jnp import fused_body_xla
-    from ..ops.scan_pallas import (
-        _hot_slots_and_combo,
-        _tile_counts_swar_call,
-        pallas_gather_mode,
-    )
 
     n_dev = mesh.shape[DATA_AXIS]
     perm = [(i, (i - 1) % n_dev) for i in range(n_dev)]
     span_elems = tile_elems + length - 1
-    if interpret:
-        gather_kernel = "dma"
-    elif mode != "xla":
-        gather_kernel = pallas_gather_mode() or False
-    else:
-        gather_kernel = False
 
-    if mode == "xla":
-
-        def local_step(d_local, valid2, vtvr2, expected, exp_exact, rec):
-            halo = jax.lax.ppermute(
-                d_local[:tile_elems], DATA_AXIS, perm
-            )
-            ext = jnp.concatenate([d_local, halo])
-            counts, combo = fused_body_xla(
-                ext, valid2[0, 0], expected, vtvr2[0], exp_exact, rec,
-                pairs=pairs, length=length, tile_elems=tile_elems,
-                k_cap=k_cap, span=span_elems, p_cap=p_cap,
-                signed_compare=signed_compare, pairs_exact=pairs_exact,
-            )
-            return counts[None], combo[None]
-
-    else:
-        # SWAR Pallas body on the packed word layout (one row = LANES_
-        # elements); ``valid2`` carries the kernel's [boundary-block,
-        # remainder] encoding per device
-        from ..ops.scan_pallas import dispatch_grouping
-
-        rows_per_tile = tile_elems // LANES_
-        # the shared grouping — must agree bit-for-bit with
-        # swar_dispatch_args (its block_rows defines the vt/vr boundary
-        # encoding the kernel masks on)
-        block_rows, fpb = dispatch_grouping(t_loc, rows_per_tile, width)
-
-        def local_step(d2_local, valid2, vtvr2, expected, exp_exact, rec):
-            halo = jax.lax.ppermute(
-                d2_local[:rows_per_tile], DATA_AXIS, perm
-            )
-            ext = jnp.concatenate([d2_local, halo], axis=0)
-            counts = _tile_counts_swar_call(
-                ext, expected, valid2[0], pairs=pairs, length=length,
-                tile_rows=block_rows, width=width, interpret=interpret,
-                fine_per_block=fpb, wc_run=wc_run,
-            )
-            combo = _hot_slots_and_combo(
-                ext, counts, (vtvr2[0], exp_exact, rec, pairs_exact),
-                k_cap=k_cap, rows_per_tile=rows_per_tile,
-                span_elems=span_elems, tile_elems=tile_elems,
-                length=length, signed_compare=signed_compare,
-                p_cap=p_cap, width=width, packed=True,
-                gather_kernel=gather_kernel, interpret=interpret,
-            )
-            return counts[None], combo[None]
+    def local_step(d_local, valid2, vtvr2, expected, exp_exact, rec):
+        halo = jax.lax.ppermute(d_local[:tile_elems], DATA_AXIS, perm)
+        ext = jnp.concatenate([d_local, halo])
+        counts, combo = fused_body_xla(
+            ext, valid2[0, 0], expected, vtvr2[0], exp_exact, rec,
+            pairs=pairs, length=length, tile_elems=tile_elems,
+            k_cap=k_cap, span=span_elems, p_cap=p_cap,
+            signed_compare=signed_compare, pairs_exact=pairs_exact,
+        )
+        return counts[None], combo[None]
 
     mapped = jax.shard_map(
         local_step,
@@ -322,24 +251,20 @@ def _sharded_fused_fn(
 
 def sharded_step_operands(
     pat: CompiledPattern,
-    mode: str,
     valid_count: int,
     t_loc: int,
     tile_elems: int,
     d: int,
 ):
     """Host-side per-device boundary/expected operands for the sharded
-    fused step: ``(valid2, vtvr2, expected_in, wc_run)``.
+    fused step: ``(valid2, vtvr2, expected_in)``.
 
-    ``valid2`` carries the per-device valid encoding the scan body masks
-    on (element count for the XLA body; the SWAR kernel's
-    [boundary-block, remainder] encoding otherwise); ``vtvr2`` the
-    phase-2 [valid-tiles, remainder] pairs.  Shared by the chunked path
-    (:func:`sharded_fused_step`) and the resident-corpus path, which
-    memoizes the device copies per (pattern, geometry).
+    ``valid2`` carries the per-device valid element count the scan body
+    masks on; ``vtvr2`` the phase-2 [valid-tiles, remainder] pairs.  Shared
+    by the chunked path (:func:`sharded_fused_step`) and the resident-corpus
+    path, which memoizes the device copies per (pattern, geometry).
     """
-    L = pat.length
-    from ..dense import _prefilter_sel
+    from ..dense import MAX_DEVICE_ELEMS, _prefilter_sel
 
     _, exp_sel, _ = _prefilter_sel(pat)
     e_loc = t_loc * tile_elems
@@ -349,39 +274,16 @@ def sharded_step_operands(
     vtvr2 = np.stack(
         [valid_loc // tile_elems, valid_loc % tile_elems], axis=1
     ).astype(np.int32)
-
-    wc_run = None
-    if mode == "xla":
-        # the XLA body masks windows with a flat int32 element count —
-        # shards past 2^31 elements would WRAP and silently mask valid
-        # windows (false negatives); callers must keep XLA-mode shards
-        # under the bound (engine falls back to the chunked path)
-        if int(valid_loc.max(initial=0)) >= 2**31:
-            raise ValueError(
-                "XLA-mode shard exceeds 2^31 elements; use smaller chunks "
-                "or the SWAR path"
-            )
-        valid2 = valid_loc.astype(np.int32)[:, None]
-        expected_in = jnp.asarray(exp_sel)
-    else:
-        from ..ops.scan_pallas import swar_dispatch_args
-
-        expected_in, _, static = swar_dispatch_args(
-            pat, t_loc, valid_count, tile_elems // LANES_
+    # the body masks windows with a flat int32 element count — shards past
+    # 2^31 elements would WRAP and silently mask valid windows (false
+    # negatives); callers keep shards under the bound (the engine falls
+    # back to the chunked path)
+    if e_loc + tile_elems >= MAX_DEVICE_ELEMS:
+        raise ValueError(
+            "per-device shard reaches 2^31 elements; use smaller chunks"
         )
-        # the formulation the expected operand was packed for MUST be the
-        # one the kernel traces (static jit key — an env flip between
-        # calls must retrace, not reuse)
-        wc_run = static["wc_run"]
-        block_elems = static["tile_rows"] * LANES_  # elements per block
-        lim = valid_count - L
-        lim_loc = np.clip(
-            lim - bases, -block_elems, (t_loc + 1) * tile_elems
-        )
-        valid2 = np.stack(
-            [lim_loc // block_elems, lim_loc % block_elems], axis=1
-        ).astype(np.int32)
-    return valid2, vtvr2, expected_in, wc_run
+    valid2 = valid_loc.astype(np.int32)[:, None]
+    return valid2, vtvr2, jnp.asarray(exp_sel)
 
 
 class ShardedPending(NamedTuple):
@@ -408,13 +310,11 @@ def sharded_fused_step(
     tile_elems: int,
     k_cap: int | None = None,
     p_cap: int = 1024,
-    use_pallas: bool = True,
-    interpret: bool = False,
     grid_offset: int = 0,
 ):
     """Fused phases 1 + 2 of one chunk across a device mesh in ONE
-    collective dispatch: per-device prefilter counts (SWAR Pallas kernel
-    where it legalizes, XLA body otherwise), ppermute tile halo, on-device
+    collective dispatch: per-device prefilter counts, ppermute tile halo,
+    on-device
     hot-tile gather + EXACT phase 2, one small per-device result buffer
     D2H.  The multi-device twin of ``dense.fused_count_extract``.
 
@@ -427,8 +327,7 @@ def sharded_fused_step(
     return sharded_fused_step_finish(
         sharded_fused_step_start(
             pat, arr, mesh, valid_count, tile_elems, k_cap=k_cap,
-            p_cap=p_cap, use_pallas=use_pallas, interpret=interpret,
-            grid_offset=grid_offset,
+            p_cap=p_cap, grid_offset=grid_offset,
         )
     )
 
@@ -441,8 +340,6 @@ def sharded_fused_step_start(
     tile_elems: int,
     k_cap: int | None = None,
     p_cap: int = 1024,
-    use_pallas: bool = True,
-    interpret: bool = False,
     grid_offset: int = 0,
 ) -> "ShardedPending":
     """Dispatch the collective fused step WITHOUT fetching the result.
@@ -450,26 +347,20 @@ def sharded_fused_step_start(
     The async half of :func:`sharded_fused_step` (the mesh twin of
     ``dense.fused_count_extract_start``): JAX dispatch is asynchronous, so
     returning the sharded device buffers lets a chunked caller keep
-    ``pipeline_depth`` collective steps in flight and pay the link's
-    per-transaction fetch latency one step late — the same deferred-fetch
-    pipelining the single-device paths use (docs/PERF.md).
+    ``pipeline_depth`` collective steps in flight and fetch each result
+    one step late — the same deferred-fetch pipelining the single-device
+    paths use.
     """
     import jax
 
-    from ..dense import FusedInfo, _prefilter_sel, auto_k_cap
-    from ..ops.scan_jnp import pattern_device_args, prefilter_checks
-    from ..ops.scan_pallas import swar_host_view
+    from ..dense import _prefilter_sel, auto_k_cap
     from jax.sharding import NamedSharding
 
     L = pat.length
     d = mesh.shape[DATA_AXIS]
-    width = np.dtype(pat.dtype).itemsize
-    pairs, exp_sel, max_shift = _prefilter_sel(pat)
+    pairs, _, _ = _prefilter_sel(pat)
     if k_cap is None:
         k_cap = auto_k_cap(pat, valid_count, tile_elems, len(pairs))
-    mode = _fused_mode(use_pallas, interpret, tile_elems, max_shift)
-    if not pairs:
-        mode = "xla"  # all-wildcard: every tile hot; take the simple body
 
     arr = np.ascontiguousarray(arr, dtype=pat.dtype)
     t_total = max(1, -(-valid_count // tile_elems))
@@ -480,31 +371,24 @@ def sharded_fused_step_start(
     else:
         arr = arr[:total]
 
-    valid2, vtvr2, expected_in, wc_run = sharded_step_operands(
-        pat, mode, valid_count, t_loc, tile_elems, d
+    valid2, vtvr2, expected_in = sharded_step_operands(
+        pat, valid_count, t_loc, tile_elems, d
     )
     _, _, exp_exact, recovery = pattern_device_args(pat)
     pairs_exact = tuple(
         (int(c), int(p))
         for c, p in zip(pat.chk_shift_cur, pat.chk_shift_prev)
     )
-    if mode == "xla":
-        dev_in = jax.device_put(arr, NamedSharding(mesh, P(DATA_AXIS)))
-    else:
-        packed = swar_host_view(arr).reshape(-1, LANES_ * width // 4)
-        dev_in = jax.device_put(packed, NamedSharding(mesh, P(DATA_AXIS)))
-
+    rows = NamedSharding(mesh, P(DATA_AXIS))
     fn = _sharded_fused_fn(
         mesh, pairs=pairs, length=L, tile_elems=tile_elems, k_cap=k_cap,
         p_cap=p_cap, signed_compare=pat.signed_compare,
-        pairs_exact=pairs_exact, mode=mode, width=width,
-        interpret=interpret, t_loc=t_loc, wc_run=wc_run,
+        pairs_exact=pairs_exact,
     )
-    sharding_rows = NamedSharding(mesh, P(DATA_AXIS))
     counts_dev, combos_dev = fn(
-        dev_in,
-        jax.device_put(valid2, sharding_rows),
-        jax.device_put(vtvr2, sharding_rows),
+        jax.device_put(arr, rows),
+        jax.device_put(valid2, rows),
+        jax.device_put(vtvr2, rows),
         expected_in,
         exp_exact,
         recovery,
@@ -586,176 +470,6 @@ def parse_sharded_combos(
         info,
         None,
     )
-
-
-# ---------------------------------------------------------------------------
-# Fused MULTI-pattern mesh step: the multi-keyword batch kernel
-# (``scan_pallas._swar_multi_gather_call`` — one HBM pass counts every
-# pattern, then per-pattern on-device gather + exact phase 2) under
-# shard_map.  K keywords cost ONE collective dispatch per alignment grid;
-# the reference runs its whole engine once per keyword
-# (``src/core/search_engine.cpp:23``).
-
-
-@functools.lru_cache(maxsize=32)
-def _sharded_fused_multi_fn(
-    mesh, *, pair_sets, lengths, tile_elems, k_cap, p_cap, signeds,
-    pairs_exacts, width, interpret, t_loc,
-):
-    import jax
-
-    from ..ops.scan_pallas import (
-        _swar_multi_gather_call,
-        dispatch_grouping,
-        pallas_gather_mode,
-    )
-
-    n_dev = mesh.shape[DATA_AXIS]
-    perm = [(i, (i - 1) % n_dev) for i in range(n_dev)]
-    rows_per_tile = tile_elems // LANES_
-    K = len(pair_sets)
-    block_rows, fpb = dispatch_grouping(
-        t_loc, rows_per_tile, width, n_patterns=K
-    )
-    gather_kernel = "dma" if interpret else (pallas_gather_mode() or False)
-
-    def local_step(
-        d2_local, valid3, vtvr3, expected, active, exp_exacts, recoveries
-    ):
-        halo = jax.lax.ppermute(d2_local[:rows_per_tile], DATA_AXIS, perm)
-        ext = jnp.concatenate([d2_local, halo], axis=0)
-        counts, combos = _swar_multi_gather_call(
-            ext, expected, active, valid3[0], vtvr3[0],
-            exp_exacts, recoveries,
-            pair_sets=pair_sets, tile_rows=block_rows, width=width,
-            interpret=interpret, fine_per_block=fpb, k_cap=k_cap,
-            rows_per_tile=rows_per_tile, tile_elems=tile_elems,
-            p_cap=p_cap, lengths=lengths, pairs_exacts=pairs_exacts,
-            signeds=signeds, gather_kernel=gather_kernel,
-        )
-        return jnp.stack(counts)[None], combos[None]
-
-    mapped = jax.shard_map(
-        local_step,
-        mesh=mesh,
-        in_specs=(
-            P(DATA_AXIS), P(DATA_AXIS), P(DATA_AXIS), P(), P(),
-            tuple(P() for _ in range(K)), tuple(P() for _ in range(K)),
-        ),
-        out_specs=(P(DATA_AXIS), P(DATA_AXIS)),
-        check_vma=False,
-    )
-    return jax.jit(mapped)
-
-
-def sharded_fused_multi_step(
-    pats,
-    dev_in,
-    mesh: Mesh,
-    valid_count: int,
-    tile_elems: int,
-    t_loc: int,
-    k_cap: int | None = None,
-    p_cap: int = 1024,
-    interpret: bool = False,
-    grid_offset: int = 0,
-):
-    """K patterns × one sharded corpus in ONE collective dispatch.
-
-    ``dev_in`` is the packed SWAR word grid already sharded across the
-    mesh (``parallel/resident.ShardedResidentCorpus.grid(packed=True)``),
-    ``t_loc`` its per-device count-tile count.  Returns a list of
-    ``(offsets, values, FusedInfo, overflow_counts)`` per pattern with
-    the same per-pattern contract as :func:`sharded_fused_step`, or
-    ``None`` when the batch is not SWAR-eligible (callers fall back to
-    per-pattern dispatches).
-    """
-    import jax
-    from jax.sharding import NamedSharding
-
-    from ..dense import (
-        auto_k_cap,
-        fused_multi_eligible,
-        multi_pattern_tables,
-    )
-    from ..ops.scan_jnp import canonical_check_tables, pattern_device_args
-    from ..ops.scan_pallas import dispatch_grouping
-
-    if not fused_multi_eligible(pats, tile_elems, interpret):
-        return None
-    width = np.dtype(pats[0].dtype).itemsize
-    d = mesh.shape[DATA_AXIS]
-    pair_sets, exp_list, active_list = canonical_check_tables(pats)
-    pair_sets_padded, expected, active = multi_pattern_tables(
-        pair_sets, exp_list, active_list, width
-    )
-    if k_cap is None:
-        k_cap = max(
-            auto_k_cap(pat, valid_count, tile_elems,
-                       int(np.count_nonzero(act)))
-            for pat, act in zip(pats, active_list)
-        )
-
-    K = len(pats)
-    rows_per_tile = tile_elems // LANES_
-    block_rows, _ = dispatch_grouping(
-        t_loc, rows_per_tile, width, n_patterns=K
-    )
-    block_elems = block_rows * LANES_
-    e_loc = t_loc * tile_elems
-    bases = np.arange(d, dtype=np.int64) * e_loc
-    # per-device per-pattern boundary encodings: valid3/vtvr3 [D, K, 2]
-    valid3 = np.zeros((d, K, 2), dtype=np.int32)
-    vtvr3 = np.zeros((d, K, 2), dtype=np.int32)
-    for ki, pat in enumerate(pats):
-        lim_loc = np.clip(
-            (valid_count - pat.length) - bases,
-            -block_elems, (t_loc + 1) * tile_elems,
-        )
-        valid3[:, ki, 0] = lim_loc // block_elems
-        valid3[:, ki, 1] = lim_loc % block_elems
-        vl = np.clip(valid_count - bases, 0, e_loc + tile_elems)
-        vtvr3[:, ki, 0] = vl // tile_elems
-        vtvr3[:, ki, 1] = vl % tile_elems
-
-    exp_exacts, recoveries, pairs_exacts = [], [], []
-    for p in pats:
-        _, _, ee, rec = pattern_device_args(p)
-        exp_exacts.append(ee)
-        recoveries.append(rec)
-        pairs_exacts.append(
-            tuple(
-                (int(c), int(pp))
-                for c, pp in zip(p.chk_shift_cur, p.chk_shift_prev)
-            )
-        )
-
-    fn = _sharded_fused_multi_fn(
-        mesh, pair_sets=tuple(pair_sets_padded),
-        lengths=tuple(p.length for p in pats), tile_elems=tile_elems,
-        k_cap=k_cap, p_cap=p_cap,
-        signeds=tuple(p.signed_compare for p in pats),
-        pairs_exacts=tuple(pairs_exacts), width=width,
-        interpret=interpret, t_loc=t_loc,
-    )
-    rows = NamedSharding(mesh, P(DATA_AXIS))
-    counts_dev, combos_dev = fn(
-        dev_in,
-        jax.device_put(valid3, rows),
-        jax.device_put(vtvr3, rows),
-        expected, active, tuple(exp_exacts), tuple(recoveries),
-    )
-    # combos_dev: [D, K * combo_len] (per-device concat of K buffers)
-    combos = np.asarray(combos_dev).reshape(d, K, -1)
-    t_total = max(1, -(-valid_count // tile_elems))
-    out = []
-    for ki in range(K):
-        res = parse_sharded_combos(
-            counts_dev[:, ki], combos[:, ki, :], d, t_loc, t_total,
-            k_cap, p_cap, tile_elems, grid_offset,
-        )
-        out.append(res)
-    return out
 
 
 def sharded_candidates(

@@ -1,8 +1,8 @@
 """Pattern compiler (layer L0).
 
 Compiles a search keyword into the numeric tables that drive both the dense
-TPU scan kernels and the exact sequential walker.  This is the TPU-native
-counterpart of the reference's preprocessing stage:
+device scan and the exact sequential walker.  This is the counterpart of
+the reference's preprocessing stage:
 
 - mode selection / state init   — ``src/core/monkey_moore.cpp:54-78``
 - no-wildcard tables            — ``src/core/monkey_moore.cpp:106-142``

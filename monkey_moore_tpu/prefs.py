@@ -75,7 +75,7 @@ class Prefs:
             "settings/display-offset-mode": "hex",
             "settings/perf-memory-pool": "8388608",
             "settings/perf-search-threads": "4",
-            # TPU-native additions
+            # additions beyond the reference
             "settings/perf-device-chunk": str(512 * 1024 * 1024),
             "settings/perf-match-semantics": "greedy",
             "ui-state/search-type": "rs",

@@ -2,7 +2,7 @@
 
 The reference only wall-clocks whole searches with a ``wxStopWatch``
 (``src/gui/monkey_frame.hpp:150``, ``monkey_frame.cpp:1191,1300-1305``).
-This module fills the observability gap TPU-side:
+This module fills the observability gap on the device side:
 
 - :class:`StageTimer` — per-stage wall-time accounting used by the engine
   (pattern compile / device scan / host extract / suppress / previews);
@@ -34,8 +34,8 @@ class SearchStats:
     candidates: int = 0
     results: int = 0
     #: fused steps that overflowed k_cap/p_cap and fell back to the
-    #: two-dispatch counts-fetch path (degraded: 5-10x slower per step on a
-    #: latency-dominated link) — surfaced so slow searches are explainable
+    #: two-dispatch counts-fetch path (degraded: an extra dispatch and a
+    #: counts transfer per step) — surfaced so slow searches are explainable
     fused_fallbacks: int = 0
     fused_steps: int = 0
     d2h_bytes: int = 0
@@ -44,7 +44,10 @@ class SearchStats:
     host_routed: bool = False
     #: host→device bytes uploaded (mesh/sharded paths)
     h2d_bytes: int = 0
-    #: bytes crossed over ICI in shard-boundary halo exchanges (mesh paths:
+    #: resident-corpus uploads the device refused (the search then streamed
+    #: chunks from the host instead)
+    resident_upload_failures: int = 0
+    #: bytes exchanged between devices in shard-boundary halos (mesh paths:
     #: one tile ppermuted per device per collective dispatch)
     ici_halo_bytes: int = 0
     #: per-shard exact candidate counts from the mesh paths' fused

@@ -553,7 +553,7 @@ class Repl:
         from . import __version__
 
         self._say(
-            f"monkey-moore TPU {__version__} — TPU-native relative search"
+            f"monkey-moore-tpu {__version__} — relative search on JAX devices"
         )
         self._say(
             "capabilities: 8/16-bit, wildcards, mixed case, value scan, "
@@ -621,7 +621,7 @@ def repl_main(
     repl = Repl(prefs_path=prefs or default_prefs_path())
     if file:
         repl.execute(f"open {shlex.quote(file)}")
-    print("monkey-moore TPU interactive session ('help' for commands)")
+    print("monkey-moore-tpu interactive session ('help' for commands)")
     while True:
         try:
             line = input("mm> ")

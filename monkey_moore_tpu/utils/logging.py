@@ -1,6 +1,6 @@
 """Debug logging.
 
-TPU-native counterpart of the ``MMOORE_LOG`` macro
+Counterpart of the ``MMOORE_LOG`` macro
 (``src/core/debug_logging.hpp:6-39``): thread-safe stderr logging with
 file:line provenance, disabled unless explicitly enabled (env var
 ``MMTPU_LOG=1`` or :func:`enable_logging`).

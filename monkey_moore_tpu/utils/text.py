@@ -1,6 +1,6 @@
 """Text/sequence utilities.
 
-TPU-native counterpart of ``include/mmoore/text_utils.hpp:14-56``.
+Counterpart of ``include/mmoore/text_utils.hpp:14-56``.
 """
 
 from __future__ import annotations

@@ -84,15 +84,24 @@ class TestResidency:
         assert get_resident_corpus(path, path.stat().st_size, 1000, 64) is None
 
 
-class TestGridDerivation:
-    """corpus._grid_fn: every (width, endianness, alignment, packed,
-    word-shift) combination of the word-arithmetic grid derivation must
-    equal the host decode — including e_start offsets that land mid-word
-    (byte_shift 1/2/3), the hazard class of the round-4 [N, 4]
-    tile-padding bug."""
+GRID_CASES = [
+    (s, big, align, e_start)
+    for s in (1, 2)
+    for big in ((False,) if s == 1 else (False, True))
+    for align in range(s)
+    # e_start 0 plus values putting b0 at every byte shift within a word
+    for e_start in (0, 1, 2, 3, 5, 101)
+]
 
-    def test_all_grid_shapes_vs_host(self, rng):
-        from monkey_moore_tpu.config import Endianness
+
+class TestGridDerivation:
+    """corpus._grid_fn: every (width, endianness, alignment, word-shift)
+    combination of the word-arithmetic grid derivation must equal the host
+    decode — including e_start offsets that land mid-word (byte_shift
+    1/2/3)."""
+
+    @pytest.mark.parametrize("s,big,align,e_start", GRID_CASES)
+    def test_all_grid_shapes_vs_host(self, rng, s, big, align, e_start):
         from monkey_moore_tpu.corpus import ResidentCorpus
 
         nb = 4096 + 37
@@ -101,36 +110,59 @@ class TestGridDerivation:
         pad = np.zeros(nb + 512, dtype=np.uint8)
         pad[:nb] = data
 
-        def host(s, big, b0, want):
-            raw = pad[b0 : b0 + want * s]
-            if s == 1:
-                return raw
-            return raw.view(">u2" if big else "<u2").astype(np.uint16)
+        endian = Endianness.BIG if big else Endianness.LITTLE
+        b0 = align + e_start * s
+        want = 512
+        got = np.asarray(c.grid_chunk(s, endian, align, e_start, want))
+        assert got.dtype == (np.uint8 if s == 1 else np.uint16)
+        assert len(got) == want
+        raw = pad[b0 : b0 + want * s]
+        expect = (
+            raw if s == 1
+            else raw.view(">u2" if big else "<u2").astype(np.uint16)
+        )
+        assert np.array_equal(got, expect)
 
-        cases = []
-        for s in (1, 2):
-            for big in ((False,) if s == 1 else (False, True)):
-                for align in range(s):
-                    # e_start 0 plus values putting b0 at every byte
-                    # shift within a word
-                    for e_start in (0, 1, 2, 3, 5, 101):
-                        cases.append((s, big, align, e_start))
-        for s, big, align, e_start in cases:
-            endian = Endianness.BIG if big else Endianness.LITTLE
-            b0 = align + e_start * s
-            want = 512
-            got = np.asarray(
-                c.grid_chunk(s, endian, align, e_start, want, packed=False)
-            )
-            assert got.dtype == (np.uint8 if s == 1 else np.uint16)
-            assert len(got) == want
-            expect = host(s, big, b0, want)
-            assert np.array_equal(got, expect), (s, big, align, e_start)
-            # packed words must carry the identical element stream
-            gp = np.asarray(
-                c.grid_chunk(s, endian, align, e_start, want, packed=True)
-            )
-            pv = gp.view("<u4").view(np.uint8 if s == 1 else "<u2")[:want]
-            assert np.array_equal(
-                pv.astype(np.int64), expect.astype(np.int64)
-            ), ("packed", s, big, align, e_start)
+
+class TestUploadFailure:
+    """A device that refuses the resident upload must not turn silently
+    into streaming: the failure is counted in SearchStats and the search
+    still returns the exact result through the streaming path."""
+
+    def setup_method(self):
+        clear_corpus_cache()
+
+    def test_refused_upload_counted(self, tmp_path, monkeypatch):
+        import jax
+
+        from monkey_moore_tpu import corpus
+
+        def refuse(self, data_bytes, pad_bytes):
+            raise jax.errors.JaxRuntimeError("RESOURCE_EXHAUSTED: test")
+
+        monkeypatch.setattr(corpus.ResidentCorpus, "__init__", refuse)
+        path = make_rom(tmp_path)
+        base = dict(file_path=path, keyword="resident",
+                    host_latency_threshold_bytes=0)
+        e = SearchEngine(SearchConfig(**base))
+        got = [r.offset for r in e.run()]
+        assert e.last_stats.resident_upload_failures == 1
+        assert e.last_stats.h2d_bytes > 0  # streamed chunks instead
+        monkeypatch.undo()
+        clear_corpus_cache()
+        want = [
+            r.offset for r in SearchEngine(
+                SearchConfig(**base, resident_bytes_limit=0)
+            ).run()
+        ]
+        assert got == want and len(want) >= 1
+
+    def test_unreadable_file_is_not_an_upload_failure(self, tmp_path):
+        stats_path = make_rom(tmp_path)
+        from monkey_moore_tpu.profiling import SearchStats
+
+        stats = SearchStats()
+        assert get_resident_corpus(
+            stats_path, stats_path.stat().st_size, 1000, 64, stats=stats
+        ) is None  # over the limit: not eligible, not a failure
+        assert stats.resident_upload_failures == 0

@@ -1,6 +1,6 @@
 """Engine-level integration tests (layer L3).
 
-Port of ``tests/test_search_engine.cpp`` with the TPU twist: the reference's
+Port of ``tests/test_search_engine.cpp`` with the device twist: the reference's
 threads × block-size partitioning-invariance sweep becomes a
 match-semantics × block-size × device-chunk-size sweep — results must be
 identical under every partitioning.
@@ -572,7 +572,7 @@ class TestHostRoute:
     """Small-input latency path (``engine._scan_host``): searches at or
     below ``host_latency_threshold_bytes`` must bypass the device entirely
     (the reference's whole benchmark range, 128 KiB-16 MiB, is
-    dispatch-bound on TPU) and return results identical to the device
+    dispatch-bound on a device) and return results identical to the device
     path."""
 
     def _offsets(self, cfg):

@@ -201,7 +201,7 @@ class TestRepl:
         repl, out = self._repl()
         repl.execute("about")
         text = out.getvalue()
-        assert "monkey-moore TPU" in text and "backend:" in text
+        assert "monkey-moore-tpu" in text and "backend:" in text
 
     def test_table_errors(self, rom, tmp_path):
         repl, out = self._repl()

@@ -113,7 +113,7 @@ class TestMultiSearcher:
 class TestMeshMultiSearcher:
     """MultiSearcher(devices=...): the keyword batch scans a sharded
     resident corpus across the mesh — results identical at every mesh
-    size, and the SWAR multi kernel runs under shard_map."""
+    size."""
 
     @pytest.mark.parametrize("n_dev", [1, 2, 8])
     def test_results_invariant_in_mesh_size(self, rom8, n_dev):
@@ -157,37 +157,3 @@ class TestMeshMultiSearcher:
         )
         got = [[r.offset for r in g] for g in ms.search(specs)]
         assert got == want == [[12_345 * 2], []]
-
-    def test_swar_multi_kernel_under_shard_map(self, rom8, rng):
-        """The batch kernel itself (one HBM pass, K patterns) under
-        shard_map in interpret mode — the exact executable the TPU
-        compiles."""
-        import jax
-
-        from monkey_moore_tpu.config import Endianness as E
-        from monkey_moore_tpu.parallel.mesh import make_mesh
-        from monkey_moore_tpu.parallel.resident import ShardedResidentCorpus
-        from monkey_moore_tpu.parallel.sharded import (
-            sharded_fused_multi_step,
-        )
-        from monkey_moore_tpu.pattern import compile_pattern
-
-        path, plants = rom8
-        data = np.fromfile(path, dtype=np.uint8)
-        mesh = make_mesh(jax.devices()[:4])
-        c = ShardedResidentCorpus(data, mesh, tile_elems=8 * 1024)
-        pats = [compile_pattern(k) for k in ("sword", "shield", "potion")]
-        dev_in = c.grid(1, E.LITTLE, 0, packed=True)
-        res = sharded_fused_multi_step(
-            pats, dev_in, mesh, len(data), c.tile_elems, c.t_loc(1),
-            interpret=True,
-        )
-        assert res is not None
-        for (offs, vals, info, over), word in zip(
-            res, ("sword", "shield", "potion")
-        ):
-            assert over is None
-            assert plants[word] in offs.tolist()
-            # recovery values decode 'a' correctly (shift +7 plants)
-            i = offs.tolist().index(plants[word])
-            assert int(vals[i][0]) == ord(word[0]) + 7

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 
 from monkey_moore_tpu.config import MatchSemantics
-from monkey_moore_tpu.dense import dense_candidates, dense_search
+from monkey_moore_tpu.dense import TILE_ELEMS, dense_candidates, dense_search
 from monkey_moore_tpu.oracle import oracle_search
 from monkey_moore_tpu.pattern import SearchMode, compile_pattern
 from common import HIRAGANA_SEQ, shift_alpha
@@ -151,6 +151,11 @@ def _c11():
     return compile_pattern("text"), data
 
 
+#: count-tile sizes the XLA sweep is checked at: the production tile, a
+#: mid-size tile, and one small enough that every corpus spans many tiles
+TILE_GEOMETRIES = [TILE_ELEMS, 1024, 16]
+
+
 @pytest.mark.parametrize("name,make", CORPORA, ids=[n for n, _ in CORPORA])
 class TestKernelVsOracle:
     def test_greedy_equals_oracle(self, name, make):
@@ -232,8 +237,8 @@ class TestEdges:
 
 
 class TestDeviceResidentExtraction:
-    @pytest.mark.parametrize("packed", [False, True])
-    def test_matches_host_extraction(self, packed):
+    @pytest.mark.parametrize("width", [1, 2])
+    def test_matches_host_extraction(self, width):
         import jax.numpy as jnp
         from monkey_moore_tpu.dense import (
             TILE_ELEMS,
@@ -241,18 +246,18 @@ class TestDeviceResidentExtraction:
             extract_hot_tiles_device,
             tile_counts,
         )
-        from monkey_moore_tpu.ops.scan_pallas import swar_host_view
 
-        pat = compile_pattern("abcde")
+        dtype = np.uint8 if width == 1 else np.uint16
+        pat = compile_pattern("abcde", dtype=dtype)
         n = 2 * TILE_ELEMS + 77
-        arr = np.zeros(4 * TILE_ELEMS, dtype=np.uint8)
-        kw = (np.array(pat.keyword) + 3).astype(np.uint8)
+        arr = np.zeros(4 * TILE_ELEMS, dtype=dtype)
+        kw = (np.array(pat.keyword) + 3).astype(dtype)
         arr[10 : 15] = kw
         arr[TILE_ELEMS - 2 : TILE_ELEMS + 3] = kw  # straddles tiles 0/1
         arr[n - 5 : n] = kw  # last valid window
         arr[n + 8 : n + 13] = kw  # past valid: must be dropped
-        dev = jnp.asarray(swar_host_view(arr) if packed else arr)
-        counts = tile_counts(pat, jnp.asarray(arr), n)
+        dev = jnp.asarray(arr)
+        counts = tile_counts(pat, dev, n)
         off_host, val_host = extract_hot_tiles(pat, arr[:n], counts)
         off_dev, val_dev = extract_hot_tiles_device(pat, dev, counts, n)
         assert off_dev.tolist() == off_host.tolist() == [
@@ -278,10 +283,8 @@ class TestFusedCountExtract:
             arr[pos : pos + len(kw)] = kw
         return arr, n
 
-    @pytest.mark.parametrize(
-        "backend", ["xla", "pallas-interpret", "packed-interpret"]
-    )
-    def test_matches_two_dispatch_path(self, backend):
+    @pytest.mark.parametrize("width", [1, 2])
+    def test_matches_two_dispatch_path(self, width):
         import jax.numpy as jnp
         from monkey_moore_tpu.dense import (
             TILE_ELEMS,
@@ -289,27 +292,19 @@ class TestFusedCountExtract:
             fused_count_extract,
             tile_counts,
         )
-        from monkey_moore_tpu.ops.scan_pallas import swar_host_view
 
-        pat = compile_pattern("abcde")
+        dtype = np.uint8 if width == 1 else np.uint16
+        pat = compile_pattern("abcde", dtype=dtype)
         arr, n = self._planted(
             pat,
             2,
             [10, TILE_ELEMS - 2, 2 * TILE_ELEMS + 50, n_plus(2) - 5],
+            dtype=dtype,
         )
-        arr[n + 8 : n + 13] = (np.array(pat.keyword) + 3).astype(np.uint8)
-        interpret = backend != "xla"
-        use_pallas = backend != "xla"
-        dev = jnp.asarray(
-            swar_host_view(arr) if backend == "packed-interpret" else arr
-        )
-        offs, vals, info = fused_count_extract(
-            pat, dev, n, use_pallas=use_pallas, interpret=interpret
-        )
-        ref_counts = tile_counts(
-            pat, jnp.asarray(arr), n, use_pallas=use_pallas,
-            interpret=interpret,
-        )
+        arr[n + 8 : n + 13] = (np.array(pat.keyword) + 3).astype(dtype)
+        dev = jnp.asarray(arr)
+        offs, vals, info = fused_count_extract(pat, dev, n)
+        ref_counts = tile_counts(pat, dev, n)
         ref_offs, ref_vals = extract_hot_tiles_device(
             pat, dev, ref_counts, n
         )
@@ -329,77 +324,6 @@ class TestFusedCountExtract:
         offs, vals, info = fused_count_extract(pat, jnp.asarray(arr), n)
         assert info.hot_tiles == 0 and len(offs) == 0 and len(vals) == 0
 
-    def test_multi_pattern_fused_interpret(self, rng):
-        """fused_count_extract_multi (ONE dispatch, K patterns) must equal
-        per-pattern two_phase_candidates — exercised in interpret mode with
-        the same SWAR kernels the TPU compiles, including a canonical
-        plain-keyword batch, a leading-wildcard keyword, and a 12-char
-        keyword."""
-        import jax.numpy as jnp
-        from monkey_moore_tpu.dense import (
-            fused_count_extract_multi,
-            fused_multi_eligible,
-            two_phase_candidates,
-        )
-        from monkey_moore_tpu.ops.scan_pallas import LANES, swar_host_view
-
-        tile_elems = 8 * LANES
-        n = 8 * tile_elems + 124  # ragged tail
-        # contract: T counted tiles + one trailing halo tile, whole tiles
-        arr = np.zeros((-(-n // tile_elems) + 1) * tile_elems, dtype=np.uint8)
-        arr[:n] = rng.integers(0, 256, n)
-        kws = ["abcde", "zyxwv", "?bcde", "abcdefghijkl"]
-        pats = [
-            compile_pattern(k, "?" if "?" in k else 0) for k in kws
-        ]
-        for i, pat in enumerate(pats):
-            kw = (np.array(pat.keyword) + 5 + i).astype(np.uint8)
-            kw[~np.asarray(pat.is_literal)] = 123  # wildcard slot: anything
-            for pos in (7 + i, tile_elems - 2, n - len(kw)):
-                arr[pos : pos + len(kw)] = kw
-        assert fused_multi_eligible(pats, tile_elems, interpret=True)
-        dev = jnp.asarray(swar_host_view(arr))
-        got = fused_count_extract_multi(
-            pats, dev, n, tile_elems=tile_elems, interpret=True
-        )
-        assert got is not None
-        for pat, (offs, vals, info) in zip(pats, got):
-            ref_offs, ref_vals = two_phase_candidates(
-                pat, arr[:n], use_pallas=False
-            )
-            assert offs.tolist() == ref_offs.tolist(), pat.keyword
-            assert vals.tolist() == ref_vals.tolist(), pat.keyword
-            assert not info.fallback
-
-    def test_multi_pattern_fused_overflow_fallback(self):
-        """Per-pattern capacity overflow inside the multi batch must fall
-        back to the batched device gather and still return every match."""
-        import jax.numpy as jnp
-        from monkey_moore_tpu.dense import (
-            fused_count_extract_multi,
-            two_phase_candidates,
-        )
-        from monkey_moore_tpu.ops.scan_pallas import LANES, swar_host_view
-
-        tile_elems = 8 * LANES
-        n = 4 * tile_elems
-        arr = np.zeros(n + 2 * tile_elems, dtype=np.uint8)
-        arr[:n] = np.tile(np.array([97, 98], dtype=np.uint8), n // 2)
-        pats = [compile_pattern("abab"), compile_pattern("zyxwv")]
-        got = fused_count_extract_multi(
-            pats, jnp.asarray(swar_host_view(arr)), n,
-            tile_elems=tile_elems, interpret=True, p_cap=16,
-        )
-        assert got is not None
-        offs0, vals0, info0 = got[0]
-        assert info0.fallback
-        ref_offs, ref_vals = two_phase_candidates(
-            pats[0], arr[:n], use_pallas=False
-        )
-        assert offs0.tolist() == ref_offs.tolist()
-        assert vals0.tolist() == ref_vals.tolist()
-        assert got[1][2].hot_tiles == 0
-
     def test_overflow_falls_back_to_batched_gather(self):
         # more hot tiles than k_cap → the batched-gather fallback must
         # still return every match
@@ -415,26 +339,26 @@ class TestFusedCountExtract:
         assert offs.tolist() == plants
         assert info.hot_tiles == 6
 
-    @pytest.mark.parametrize("backend", ["xla", "pallas-interpret"])
-    def test_device_exact_filters_prefilter_false_positives(self, backend):
+    @pytest.mark.parametrize("tile_elems", [TILE_GEOMETRIES[0], 1024])
+    def test_device_exact_filters_prefilter_false_positives(
+        self, tile_elems
+    ):
         # windows that pass the capped mod-2^width prefilter but fail the
         # full exact checks must die ON DEVICE (n_cand excludes them), not
         # just in a host pass
         import jax.numpy as jnp
-        from monkey_moore_tpu.dense import TILE_ELEMS, fused_count_extract
+        from monkey_moore_tpu.dense import fused_count_extract
 
         pat = compile_pattern("abcdefgh")  # 7 checks, 4 on the prefilter
-        arr = np.zeros(3 * TILE_ELEMS, dtype=np.uint8)
+        arr = np.zeros(3 * tile_elems, dtype=np.uint8)
         # ramp of 5: passes the first-4-diffs prefilter, breaks at check 5
         arr[100:106] = [10, 11, 12, 13, 14, 99]
         # a real match
         kw = (np.array(pat.keyword) + 3).astype(np.uint8)
         arr[500:508] = kw
-        n = 2 * TILE_ELEMS
-        interpret = backend != "xla"
+        n = 2 * tile_elems
         offs, vals, info = fused_count_extract(
-            pat, jnp.asarray(arr), n,
-            use_pallas=interpret, interpret=interpret,
+            pat, jnp.asarray(arr), n, tile_elems=tile_elems
         )
         assert info.hot_tiles == 1  # both plants share tile 0
         # phase 1 counts the ramp FP, the match, and the match's interior
@@ -555,8 +479,7 @@ class TestPrefilterCapping:
         arr = np.zeros(2 * TILE_ELEMS, dtype=np.uint8)
         arr[: len(data)] = data
         counts = tile_counts(
-            pat, jnp.asarray(arr), len(data), interpret=True,
-            tile_elems=TILE_ELEMS,
+            pat, jnp.asarray(arr), len(data), tile_elems=TILE_ELEMS
         )
         # interior windows of each planted ramp also pass the capped
         # (first-4-diffs) prefilter — compare against the brute-force
@@ -566,26 +489,36 @@ class TestPrefilterCapping:
         assert len(want) > len(brute_force_all(pat, data)) == 2
 
 
-class TestPallasKernelInterpret:
-    """Validates the Mosaic tile-count kernel's logic on CPU via Pallas
-    interpret mode (the TPU path compiles the same kernel)."""
+def _padded(pat, data, tile_elems):
+    """``data`` in the device contract: whole tiles + one halo tile."""
+    n = len(data)
+    arr = np.zeros((-(-n // tile_elems) + 1) * tile_elems, dtype=pat.dtype)
+    arr[:n] = data
+    return arr
 
+
+class TestTileCountsXla:
+    """The XLA count sweep (``dense.tile_counts``) per tile against the
+    brute-force prefilter, at every tile geometry."""
+
+    @pytest.mark.parametrize("tile_elems", TILE_GEOMETRIES)
     @pytest.mark.parametrize("name,make", CORPORA, ids=[n for n, _ in CORPORA])
-    def test_counts_match_brute_force(self, name, make):
+    def test_counts_match_brute_force(self, name, make, tile_elems):
         import jax.numpy as jnp
-        from monkey_moore_tpu.dense import TILE_ELEMS, tile_counts
+        from monkey_moore_tpu.dense import tile_counts
 
         pat, data = make()
         n = len(data)
-        arr = np.zeros(2 * TILE_ELEMS, dtype=pat.dtype)
-        arr[:n] = data
         counts = tile_counts(
-            pat, jnp.asarray(arr), n, interpret=True, tile_elems=TILE_ELEMS
+            pat, jnp.asarray(_padded(pat, data, tile_elems)), n,
+            tile_elems=tile_elems,
         )
-        assert counts.shape == (1,)
-        assert int(counts[0]) == len(brute_force_prefilter(pat, data))
+        want = np.zeros(-(-n // tile_elems), dtype=np.int64)
+        for p in brute_force_prefilter(pat, data):
+            want[p // tile_elems] += 1
+        assert counts.tolist() == want.tolist()
         # and the prefilter never undercounts the exact match set
-        assert int(counts[0]) >= len(brute_force_all(pat, data))
+        assert int(counts.sum()) >= len(brute_force_all(pat, data))
 
     def test_prefilter_false_positive_filtered_by_extraction(self):
         # 0-255 = -255 ≡ +1 mod 256 passes the device prefilter but host
@@ -597,153 +530,91 @@ class TestPallasKernelInterpret:
         assert offsets.tolist() == brute_force_all(pat, data)
         assert 1 not in offsets.tolist()
 
-    @pytest.mark.parametrize("mode", ["swar", "swar-packed"])
-    @pytest.mark.parametrize("name,make", CORPORA, ids=[n for n, _ in CORPORA])
-    def test_swar_mode_counts_match_brute_force(self, name, make, mode):
-        # the SWAR mode (elements packed into i32 lanes, pure 32-bit vector
-        # math) must be count-identical to the element-dtype kernel, both
-        # from an element-dtype array (in-jit packing) and from a pre-packed
-        # little-endian host view (swar_host_view upload)
+    @pytest.mark.parametrize("tile_elems", TILE_GEOMETRIES[:2] + [64])
+    def test_cross_tile_window_counted(self, tile_elems):
         import jax.numpy as jnp
-        from monkey_moore_tpu.dense import TILE_ELEMS
-        from monkey_moore_tpu.ops.scan_pallas import (
-            LANES,
-            swar_host_view,
-            tile_counts_pallas,
-        )
-
-        pat, data = make()
-        n = len(data)
-        arr = np.zeros(2 * TILE_ELEMS, dtype=pat.dtype)
-        arr[:n] = data
-        if mode == "swar-packed":
-            lanes32 = LANES * arr.dtype.itemsize // 4
-            data2d = jnp.asarray(swar_host_view(arr)).reshape(-1, lanes32)
-        else:
-            data2d = jnp.asarray(arr).reshape(-1, LANES)
-        counts = tile_counts_pallas(
-            pat, data2d, n, interpret=True, mode="swar"
-        )
-        assert counts.tolist() == [len(brute_force_prefilter(pat, data))]
-
-    @pytest.mark.parametrize("tiles", [2, 4, 8])
-    @pytest.mark.parametrize("width", [1, 2])
-    def test_swar_grouped_dispatch_counts_per_fine_tile(self, tiles, width, rng):
-        # power-of-two fine-tile counts trigger the grouped dispatch path
-        # (several fine tiles per grid step, sub-counts in one output
-        # block); counts must stay identical per fine tile to the XLA
-        # prefilter, including matches straddling fine-tile boundaries and
-        # the valid-limit boundary
-        import jax.numpy as jnp
-        from monkey_moore_tpu.ops.scan_jnp import (
-            prefilter_expected,
-            tile_counts_xla,
-        )
-        from monkey_moore_tpu.ops.scan_pallas import LANES, tile_counts_pallas
-
-        dtype = np.uint8 if width == 1 else np.uint16
-        mod = 256 if width == 1 else 65536
-        tile_rows = 8
-        tile_elems = tile_rows * LANES
-        n = tiles * tile_elems - 137  # ragged valid limit
-        pat = compile_pattern("abcde", dtype=dtype)
-        arr = np.zeros((tiles + 1) * tile_elems, dtype=dtype)
-        arr[:n] = rng.integers(0, mod, n).astype(dtype)
-        kw = np.array(pat.keyword, dtype=np.int64)
-        plants = [3, tile_elems - 2, n - 5]  # incl. a tile straddle + EOF
-        plants += [t * tile_elems + 11 for t in range(tiles)]
-        for i, pos in enumerate(plants):
-            arr[pos : pos + 5] = ((kw + i) % mod).astype(dtype)
-        data2d = jnp.asarray(arr).reshape(-1, LANES)
-        got = tile_counts_pallas(
-            pat, data2d, n, tile_rows=tile_rows, interpret=True, mode="swar"
-        )
-        from monkey_moore_tpu.ops.scan_jnp import prefilter_checks
-
-        sel_pairs, sel_exp = prefilter_checks(pat)
-        want = tile_counts_xla(
-            jnp.asarray(arr),
-            jnp.int32(n),
-            jnp.asarray(sel_exp),
-            pairs=sel_pairs,
-            length=5,
-            tile_elems=tile_elems,
-        )
-        assert got.tolist() == np.asarray(want).tolist()
-
-    @pytest.mark.parametrize("name,make", CORPORA, ids=[n for n, _ in CORPORA])
-    def test_i32_mode_counts_match_native(self, name, make):
-        # the widened 32-bit compute mode (for toolchains that reject
-        # sub-32-bit vector math) must be count-identical to native
-        import jax.numpy as jnp
-        from monkey_moore_tpu.dense import TILE_ELEMS
-        from monkey_moore_tpu.ops.scan_pallas import LANES, tile_counts_pallas
-
-        pat, data = make()
-        n = len(data)
-        arr = np.zeros(2 * TILE_ELEMS, dtype=pat.dtype)
-        arr[:n] = data
-        data2d = jnp.asarray(arr).reshape(-1, LANES)
-        counts = tile_counts_pallas(
-            pat, data2d, n, interpret=True, mode="i32"
-        )
-        assert counts.tolist() == [len(brute_force_prefilter(pat, data))]
-
-    def test_cross_tile_window_counted(self):
-        import jax.numpy as jnp
-        from monkey_moore_tpu.dense import TILE_ELEMS, tile_counts
+        from monkey_moore_tpu.dense import tile_counts
 
         pat = compile_pattern("abcde")
-        n = 2 * TILE_ELEMS + 100  # 2 counted tiles + partial
-        arr = np.zeros(4 * TILE_ELEMS, dtype=np.uint8)
+        n = 2 * tile_elems + 20  # 2 counted tiles + partial
+        arr = np.zeros(4 * tile_elems, dtype=np.uint8)
         kw = (np.array(pat.keyword) + 3).astype(np.uint8)
         # straddles the tile-0/tile-1 boundary
-        arr[TILE_ELEMS - 2 : TILE_ELEMS + 3] = kw
+        arr[tile_elems - 2 : tile_elems + 3] = kw
         # inside tile 1
-        arr[TILE_ELEMS + 50 : TILE_ELEMS + 55] = kw
+        arr[tile_elems + 10 : tile_elems + 15] = kw
         # beyond valid → must not count
         arr[n - 2 : n + 3] = kw
-        counts = tile_counts(
-            pat, jnp.asarray(arr), n, interpret=True, tile_elems=TILE_ELEMS
-        )
+        counts = tile_counts(pat, jnp.asarray(arr), n, tile_elems=tile_elems)
         assert counts.tolist() == [1, 1, 0]
 
-
-class TestAllocFineTiles:
-    """Allocation sizes from alloc_fine_tiles must always let the grouped
-    dispatch engage at full width (indivisible tile counts silently cost
-    ~5x — the round-3 probe regression)."""
-
-    @pytest.mark.parametrize("width", [1, 2])
-    @pytest.mark.parametrize("tile_rows", [8, 64, 256])
-    @pytest.mark.parametrize(
-        "n", [8192, 100000, 2**21 - 137, 2**21, 2**27 + 1]
-    )
-    def test_group_engages(self, n, tile_rows, width):
-        from monkey_moore_tpu.ops.scan_pallas import (
-            LANES,
-            alloc_fine_tiles,
-            dispatch_group_cap,
+    @pytest.mark.parametrize("entry", ["tile_counts", "fused_start"])
+    @pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+    def test_refuses_2_pow_31_elements(self, entry, dtype):
+        """Arrays of 2**31 elements would wrap the body's int32 indices
+        (silent false negatives); both device entry points refuse them.
+        Shapes only — nothing of that size is allocated."""
+        import jax
+        from monkey_moore_tpu.dense import (
+            fused_count_extract_start,
+            tile_counts,
         )
 
-        tile_elems = tile_rows * LANES
-        tiles = alloc_fine_tiles(n, tile_elems, width)
-        group = dispatch_group_cap(tile_rows, width)
-        assert tiles % group == 0
-        assert tiles * tile_elems >= n  # covers the corpus
-        assert (tiles - group) * tile_elems < n  # minimal rounding
-        # the auto-grouping loop reaches exactly `group` for this count
-        fpb = 1
-        max_block_rows = (2 * 1024 * 1024) // (LANES * width)
-        block_rows = tile_rows
-        while (
-            fpb * 2 <= 1024
-            and block_rows * 2 <= max_block_rows
-            and tiles % (fpb * 2) == 0
-        ):
-            fpb *= 2
-            block_rows *= 2
-        assert fpb == group
+        pat = compile_pattern("abcde", dtype=dtype)
+        big = jax.ShapeDtypeStruct((2**31 + TILE_ELEMS,), dtype)
+        fn = tile_counts if entry == "tile_counts" else (
+            fused_count_extract_start
+        )
+        with pytest.raises(ValueError, match="2\\*\\*31"):
+            fn(pat, big, 2**31)
+        # one element under the bound with a small valid count is also an
+        # oversize ARRAY, refused before anything is traced
+        with pytest.raises(ValueError):
+            fn(pat, jax.ShapeDtypeStruct((2**31,), dtype), 1000)
+
+
+@pytest.mark.parametrize("name,make", CORPORA, ids=[n for n, _ in CORPORA])
+class TestFusedVsOracle:
+    """The production fused step (``dense.fused_count_extract``) on every
+    reference corpus: exact offsets equal the brute-force matcher, values
+    equal the two-dispatch path, and the sequential oracle is a subset."""
+
+    @pytest.mark.parametrize("tile_elems", [TILE_ELEMS, 16])
+    def test_fused_matches_oracle(self, name, make, tile_elems):
+        import jax.numpy as jnp
+        from monkey_moore_tpu.dense import fused_count_extract
+
+        pat, data = make()
+        offs, vals, info = fused_count_extract(
+            pat, jnp.asarray(_padded(pat, data, tile_elems)), len(data),
+            tile_elems=tile_elems,
+        )
+        ref_offs, ref_vals = dense_candidates(pat, data)
+        assert offs.tolist() == brute_force_all(pat, data)
+        assert vals.tolist() == ref_vals.tolist()
+        oracle_offs = {o for o, _ in oracle_search(pat, data)}
+        assert oracle_offs <= set(offs.tolist())
+
+    @pytest.mark.parametrize("cap", ["k_cap", "p_cap"])
+    def test_overflow_fallback_exact(self, name, make, cap):
+        """A one-slot hot-tile (``k_cap``) or candidate (``p_cap``) buffer
+        overflows on any corpus with two hot tiles or two candidates; the
+        counts-fetch fallback must still return the exact set."""
+        import jax.numpy as jnp
+        from monkey_moore_tpu.dense import fused_count_extract
+
+        pat, data = make()
+        tile_elems = 16
+        offs, vals, info = fused_count_extract(
+            pat, jnp.asarray(_padded(pat, data, tile_elems)), len(data),
+            tile_elems=tile_elems, **{cap: 1},
+        )
+        want = brute_force_all(pat, data)
+        assert offs.tolist() == want
+        if cap == "p_cap" and len(want) > 1:
+            assert info.fallback
+        _, ref_vals = dense_candidates(pat, data)
+        assert vals.tolist() == ref_vals.tolist()
 
 
 class TestNonzeroCapped:
@@ -794,220 +665,3 @@ class TestNonzeroCapped:
         flat[[3, 998, 999]] = True
         got = np.asarray(nonzero_capped(jnp.asarray(flat), 8, blk=16))
         assert got[:3].tolist() == [3, 998, 999]
-
-
-class TestGatherKernels:
-    """The manual-DMA hot-tile gather must be byte-identical to the
-    BlockSpec gather and the plain row take, for any hot-id pattern
-    (duplicates included — idle slots repeat a tile)."""
-
-    @pytest.mark.parametrize("k_cap", [1, 2, 8])
-    def test_dma_matches_block_and_take(self, k_cap, rng):
-        import jax.numpy as jnp
-        from monkey_moore_tpu.ops.scan_pallas import (
-            _gather_tiles_call,
-            _gather_tiles_dma_call,
-        )
-
-        rows_per_tile = 8
-        data = jnp.asarray(
-            rng.integers(-(2**31), 2**31, (80, 128)).astype(np.int32)
-        )
-        hot = jnp.asarray(
-            rng.integers(0, 80 // rows_per_tile - 1, k_cap).astype(np.int32)
-        )
-        dma = np.asarray(
-            _gather_tiles_dma_call(
-                data, hot, k_cap=k_cap, rows_per_tile=rows_per_tile,
-                interpret=True,
-            )
-        )
-        blk = np.asarray(
-            _gather_tiles_call(
-                data, hot, k_cap=k_cap, rows_per_tile=rows_per_tile,
-                interpret=True,
-            )
-        )
-        ridx = np.asarray(hot)[:, None] * rows_per_tile + np.arange(
-            2 * rows_per_tile
-        )
-        take = np.asarray(data)[ridx].reshape(-1, 128)
-        assert (dma == blk).all()
-        assert (dma == take).all()
-
-
-class TestWordCompareKernel:
-    """The SWAR kernel's word-compare formulation (``wordcmp_run``): for
-    consecutive distance-1 check runs the whole condition is one 32-bit
-    equality per word parity.  Counts must be identical to the v2
-    xor/or/popcount formulation and the XLA prefilter."""
-
-    def test_eligibility(self):
-        from monkey_moore_tpu.ops.scan_jnp import prefilter_checks
-        from monkey_moore_tpu.ops.scan_pallas import wordcmp_run
-
-        def run_of(kw, wc=0, dtype=np.uint8):
-            pat = compile_pattern(kw, wc, dtype=dtype)
-            pairs, _ = prefilter_checks(pat)
-            return wordcmp_run(pairs, 4 // np.dtype(dtype).itemsize)
-
-        assert run_of("abcde") == (0, 4)  # dense from 0, full word
-        assert run_of("abcd") == (0, 3)  # short run, masked compare
-        assert run_of("abcdefghijkl") == (0, 4)  # capped selection
-        # zero-diff first check deprioritized -> run starts at m=1
-        assert run_of("aabcde") == (1, 4)
-        assert run_of("abcde", dtype=np.uint16) == (0, 2)
-        # wildcard bridges have distance-2 checks -> v2
-        assert run_of("ab*de", "*") is None
-        # MMTPU_WORDCMP=0 forces v2
-        import os
-
-        os.environ["MMTPU_WORDCMP"] = "0"
-        try:
-            assert run_of("abcde") is None
-        finally:
-            del os.environ["MMTPU_WORDCMP"]
-
-    def test_env_flip_retraces_single_check(self, rng):
-        """Regression: a single-check pattern ('ab', C==1) gives BOTH
-        formulations an expected operand of shape (1,), so the jit cache
-        used to serve a stale executable across an MMTPU_WORDCMP flip —
-        undercounting the prefilter.  The formulation is now a static jit
-        key (wc_run), so both orders must count identically."""
-        import os
-
-        import jax.numpy as jnp
-        from monkey_moore_tpu.ops.scan_pallas import (
-            LANES,
-            tile_counts_pallas,
-        )
-
-        pat = compile_pattern("ab")
-        tile_rows = 8
-        n = 2 * tile_rows * LANES - 19
-        arr = np.zeros(3 * tile_rows * LANES, dtype=np.uint8)
-        arr[:n] = rng.integers(0, 256, n).astype(np.uint8)
-        data2d = jnp.asarray(arr).reshape(-1, LANES)
-        want = len(brute_force_prefilter(pat, arr[:n]))
-
-        os.environ["MMTPU_WORDCMP"] = "0"
-        try:
-            v2 = tile_counts_pallas(
-                pat, data2d, n, tile_rows=tile_rows, interpret=True,
-                mode="swar",
-            )
-        finally:
-            del os.environ["MMTPU_WORDCMP"]
-        wc = tile_counts_pallas(
-            pat, data2d, n, tile_rows=tile_rows, interpret=True, mode="swar"
-        )
-        assert int(np.sum(v2)) == want
-        assert int(np.sum(wc)) == want
-
-    @pytest.mark.parametrize("width", [1, 2])
-    @pytest.mark.parametrize(
-        "kw", ["abcde", "abcd", "aabcde", "abcdefghijkl"]
-    )
-    def test_counts_match_v2_and_brute_force(self, kw, width, rng):
-        import jax.numpy as jnp
-        from monkey_moore_tpu.ops.scan_pallas import (
-            LANES,
-            tile_counts_pallas,
-            wordcmp_run,
-        )
-        from monkey_moore_tpu.ops.scan_jnp import prefilter_checks
-
-        dtype = np.uint8 if width == 1 else np.uint16
-        mod = 1 << (8 * width)
-        pat = compile_pattern(kw, dtype=dtype)
-        pairs, _ = prefilter_checks(pat)
-        assert wordcmp_run(pairs, 4 // width) is not None
-        tile_rows = 8
-        tile_elems = tile_rows * LANES
-        n = 3 * tile_elems - 57  # ragged valid limit in the last tile
-        arr = np.zeros(4 * tile_elems, dtype=dtype)
-        arr[:n] = rng.integers(0, mod, n).astype(dtype)
-        kv = np.array(pat.keyword, dtype=np.int64)
-        L = pat.length
-        # plants: interior, tile straddle, word-misaligned parities, EOF
-        for i, pos in enumerate([5, 33, 34, 35, tile_elems - 2, n - L]):
-            arr[pos : pos + L] = ((kv + 7 * i) % mod).astype(dtype)
-        data2d = jnp.asarray(arr).reshape(-1, LANES)
-        got = tile_counts_pallas(
-            pat, data2d, n, tile_rows=tile_rows, interpret=True, mode="swar"
-        )
-        import os
-
-        os.environ["MMTPU_WORDCMP"] = "0"
-        try:
-            want = tile_counts_pallas(
-                pat, data2d, n, tile_rows=tile_rows, interpret=True,
-                mode="swar",
-            )
-        finally:
-            del os.environ["MMTPU_WORDCMP"]
-        assert got.tolist() == want.tolist()
-        # and the per-corpus total matches the brute-force prefilter
-        assert int(np.sum(got)) == len(brute_force_prefilter(pat, arr[:n]))
-
-    @pytest.mark.parametrize("width", [1, 2])
-    @pytest.mark.parametrize("n_tiles", [4, 8])
-    def test_grouped_dispatch_boundary_masking(self, width, n_tiles, rng):
-        """Grouped dispatch (fine_per_block > 1) with a ragged valid limit:
-        the per-parity boundary keeps of the word-compare kernel
-        (``_boundary_wc``) must mask exactly at the valid edge inside a
-        multi-fine-tile dispatch block.  4/8 tiles at tile_rows=8 are
-        divisible, so ``dispatch_grouping`` engages (fpb > 1), unlike the
-        3-tile cases above."""
-        import jax.numpy as jnp
-        from monkey_moore_tpu.ops.scan_jnp import prefilter_checks
-        from monkey_moore_tpu.ops.scan_pallas import (
-            LANES,
-            dispatch_grouping,
-            tile_counts_pallas,
-            wordcmp_run,
-        )
-
-        dtype = np.uint8 if width == 1 else np.uint16
-        mod = 1 << (8 * width)
-        pat = compile_pattern("abcde", dtype=dtype)
-        pairs, _ = prefilter_checks(pat)
-        assert wordcmp_run(pairs, 4 // width) is not None
-        tile_rows = 8
-        tile_elems = tile_rows * LANES
-        _, fpb = dispatch_grouping(n_tiles, tile_rows, width)
-        assert fpb > 1  # the grouping under test actually engages
-        # ragged: the valid limit ends mid-word inside the LAST fine tile
-        # of a grouped dispatch block
-        n = n_tiles * tile_elems - 37
-        arr = np.zeros((n_tiles + 1) * tile_elems, dtype=dtype)
-        arr[:n] = rng.integers(0, mod, n).astype(dtype)
-        kv = np.array(pat.keyword, dtype=np.int64)
-        L = pat.length
-        # plants: fine-tile straddles inside the block, block edge, the
-        # exact last valid start, and one PAST the limit (must not count)
-        plant_at = [
-            tile_elems - 2,          # fine-tile straddle within the block
-            2 * tile_elems - 1,      # another straddle, odd parity
-            n - L,                   # last valid start
-        ]
-        for i, pos in enumerate(plant_at):
-            arr[pos : pos + L] = ((kv + 11 * i) % mod).astype(dtype)
-        arr[n - L + 1 : n - L + 1 + L] = kv.astype(dtype)  # crosses limit
-        data2d = jnp.asarray(arr).reshape(-1, LANES)
-        got = tile_counts_pallas(
-            pat, data2d, n, tile_rows=tile_rows, interpret=True, mode="swar"
-        )
-        assert len(got) >= n_tiles
-        assert int(np.sum(got)) == len(brute_force_prefilter(pat, arr[:n]))
-        import os
-
-        os.environ["MMTPU_WORDCMP"] = "0"
-        try:
-            v2 = tile_counts_pallas(
-                pat, data2d, n, tile_rows=tile_rows, interpret=True,
-                mode="swar",
-            )
-        finally:
-            del os.environ["MMTPU_WORDCMP"]
-        assert got.tolist() == v2.tolist()

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Scaling-efficiency harness: sharded scan throughput vs mesh size.
 
-On real multi-chip hardware this measures bytes/s at 1..N chips (the
-BASELINE.json scaling metric).  Without a pod, run it on virtual CPU
+On real multi-device hardware this measures bytes/s at 1..N devices (the
+BASELINE.json scaling metric).  Without one, run it on virtual CPU
 devices to validate the collective structure and observe the overhead
 curve (virtual devices share one physical CPU, so efficiency numbers on
 CPU are *not* meaningful as absolute scaling).
@@ -80,7 +80,7 @@ def main():
     # contention, not hardware scaling — efficiency columns would read as a
     # scaling failure when they are physics.  On CPU the STRUCTURAL columns
     # are the report (per-search dispatch count and repeat-H2D flat in mesh
-    # size, per-shard candidate balance, halo bytes crossing ICI); rates
+    # size, per-shard candidate balance, halo bytes exchanged between devices); rates
     # and efficiency_vs_linear are emitted only on real multi-chip hardware.
     real_hw = jax.default_backend() not in ("cpu",)
     report = {}
@@ -126,7 +126,8 @@ def main():
               f"ici halo={stats.ici_halo_bytes}, "
               f"per-shard cands={stats.per_device_candidates}", flush=True)
 
-    out = REPO / "BENCH_SCALING.json"
+    out = REPO / "out" / "BENCH_SCALING.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({
         "data_mb": args.mb,
         "backend": jax.default_backend(),
@@ -138,7 +139,7 @@ def main():
             "structural scaling evidence: one collective dispatch per "
             "search and zero repeat H2D at every mesh size, halo volume "
             "linear in devices, balanced per-shard candidates.  bytes/s + "
-            "efficiency_vs_linear appear ONLY on real multi-chip hardware "
+            "efficiency_vs_linear appear ONLY on real multi-device hardware "
             "(virtual CPU devices share one physical CPU, where such "
             "numbers measure contention, not scaling)"
         ),

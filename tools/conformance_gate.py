@@ -14,6 +14,10 @@ always; degenerate patterns must raise ``ValueError`` everywhere the
 oracle does.
 
 Usage: python tools/conformance_gate.py [--trials 120] [--seed 7] [--cpu]
+       [--device-route] [--json OUT.json]
+
+``--device-route`` sends every trial through the single-device scan
+(host latency route off, no mesh) — the gate for the accelerator path.
 """
 
 import argparse
@@ -89,19 +93,21 @@ def _gen_trial(rng, mod):
     return mode, kw, seq, values, wildcard
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--trials", type=int, default=120)
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--json", type=Path, default=None,
-                    help="write the gate result as a JSON artifact (used "
-                         "for the per-round on-TPU record, "
-                         "CONFORMANCE_TPU.json)")
+                    help="write the gate result as a JSON artifact naming "
+                         "the device it ran on")
+    ap.add_argument("--device-route", action="store_true",
+                    help="force every trial through the single-device "
+                         "scan (no host route, no mesh)")
     ap.add_argument("--multi-trials", type=int, default=None,
                     help="multi-keyword batch trials (MultiSearcher vs "
                          "per-keyword engines; default trials//4)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     import os
 
@@ -224,6 +230,11 @@ def main():
             path.write_bytes(blob)
             block = int(rng.choice([64, 256, 1024, 524288]))
             chunk = int(rng.choice([4096, 65536, 1 << 20]))
+            # drawn on every trial so the corpora do not depend on the route
+            n_mesh = int(rng.choice([2, 4, 8]))
+            route = 1 if args.device_route else t % 3
+            if route == 2 and len(jax.devices()) < 2:
+                route = 1
 
             def mk_cfg(semantics):
                 return SearchConfig(
@@ -243,12 +254,10 @@ def main():
                     # t%3==1 the forced device scan, t%3==2 the mesh path
                     # over a random virtual-device count
                     host_latency_threshold_bytes=(
-                        1 << 40 if t % 3 == 0 else 0
+                        1 << 40 if route == 0 else 0
                     ),
                     devices=(
-                        list(jax.devices()[: int(rng.choice([2, 4, 8]))])
-                        if t % 3 == 2 and len(jax.devices()) >= 2
-                        else None
+                        list(jax.devices()[:n_mesh]) if route == 2 else None
                     ),
                 )
 
@@ -395,13 +404,13 @@ def main():
                 ),
                 device_chunk_bytes=int(rng.choice([8192, 1 << 20])),
             )
+            n_mesh = int(rng.choice([2, 4]))
+            route = 1 if args.device_route else t % 3
+            if route == 2 and len(jax.devices()) < 2:
+                route = 1
             ms = MultiSearcher(
                 path,
-                devices=(
-                    list(jax.devices()[: int(rng.choice([2, 4]))])
-                    if t % 3 == 2 and len(jax.devices()) >= 2
-                    else None
-                ),
+                devices=list(jax.devices()[:n_mesh]) if route == 2 else None,
                 **common,
             )
             groups = ms.search(specs)
@@ -419,7 +428,7 @@ def main():
                         kwargs.get("reference_values", ())
                     ),
                     host_latency_threshold_bytes=(
-                        1 << 40 if t % 3 == 0 else 0
+                        1 << 40 if route == 0 else 0
                     ),
                     **common,
                 )
@@ -451,15 +460,12 @@ def main():
         import datetime
         import json
 
-        from monkey_moore_tpu.ops.scan_pallas import pallas_compute_mode
-
         dev0 = jax.devices()[0]
         artifact = {
             "date": datetime.date.today().isoformat(),
             "backend": jax.default_backend(),
             "device_kind": dev0.device_kind,
             "n_devices": len(jax.devices()),
-            "kernel_mode": pallas_compute_mode(),
             "trials": args.trials,
             "seed": args.seed,
             "checks_passed": passed,
@@ -467,10 +473,14 @@ def main():
             "known_divergence": known_divergence,
             "pass_rate_pct": 100.0 * passed / max(1, total),
             "mode_counts": mode_counts,
-            "routes": "host / forced-device / mesh (t%3 rotation; mesh "
-                      "falls back to forced-device when <2 devices)",
+            "routes": (
+                "forced-device" if args.device_route else
+                "host / forced-device / mesh (t%3 rotation; mesh falls "
+                "back to forced-device when <2 devices)"
+            ),
             "failures": [repr(f) for f in failures[:10]],
         }
+        args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(artifact, indent=2) + "\n")
         print(f"written: {args.json}")
     return 1 if failed else 0
